@@ -23,10 +23,12 @@ Phases (any failure exits non-zero and prints no result):
      plain versions bit for bit, bf16 within the per-bin bound of the same
      bf16 values), n_active = 0 (clamped to 1: i32 equal to the plain
      versions bit for bit), the ranged kernels (equal to the block-list
-     kernels given the matching arange list, bit for bit), and K4 on a
+     kernels given the matching arange list, bit for bit), K4 on a
      scattered leaf, a one-block leaf and planted gain ties in every mode
      (leaf_cases; on the ties, i32 rows equal the plain scan bit for
-     bit);
+     bit), and the root on skewed bins (skew_bins: 90 % of the rows in
+     bin 0 in half the features) in every mode, held to the uniform
+     root's checks;
   3. the main path: `task=train` through cli.Application with every
      tree's device work under torch.cuda.set_sync_debug_mode("error");
      launch counts of the main path; the model file parses back; the same
@@ -40,7 +42,8 @@ Phases (any failure exits non-zero and prints no result):
      their plain versions and against a contiguous copy; unbagged i32
      writes the same model bytes with hist_ordered=auto and off;
   4. profiles of one tree (main path, bagged i32), then times for every
-     kernel, mode and leaf: the kernel's (median, min and max of 5 means
+     kernel, mode and leaf (the skewed root included): the kernel's
+     (median, min and max of 5 means
      of 20 back-to-back calls between CUDA events, which read the host's
      work a call where it exceeds the kernel's; and its device time
      alone, from 5 replays of a CUDA graph of 20 calls), its plain
@@ -69,20 +72,25 @@ MAX_BIN = 255
 SEED = 42
 TIE_BIN = 100                  # leaf_inputs' "ties": feature 0's upper bin
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak rate
-# The f32 bound on a bin's grad or hess sum.  The sweep sums a bin's rows
-# in lane-order groups of at most 32 (at most 31 roundings), adds each
-# group into its 1024-row tile's bin (at most 32 steps, so 32 roundings),
-# merges a block's 8 tiles in rank order (7), and the reduce adds the
-# n_active block partials in list order (n_active): a term meets at most
-# 31 + 32 + 7 + n_active roundings, below d = min(count, 32 + ROW_BLOCK /
-# 32 + n_active), and adding an exact zero (an empty tile or block) does
-# not round, so count still caps it.  The kernel's sum is within
-# d * 2^-24 * sum|terms| of the exact sum (recursive summation), and the
-# plain version, summed in f64 and rounded once, within 2^-24 *
-# sum|terms|.  Each bin is held to (d + 2) * 2^-24 * its own sum|terms|.
-# A control histogram of bf16-rounded grad and hess must break that bound,
-# or the check could not tell f32 from bf16 operands.
+# The f32 bound on a bin's grad or hess sum.  In the sweep a term meets
+# at most: ceil(log2 32) = 5 roundings in its sub-step's group (the rows
+# of a bin among a warp's 32 lanes, summed by a pairwise tree in lane
+# order); 31 as its group's sum is added to the tile's bin over the
+# tile's at most 32 sub-steps (the first addition, into +0.0, is exact);
+# 7 in the merge of a block's 8 tiles in rank order; and n_active - 1 in
+# the reduce over the listed blocks in list order (from 0).  So at most
+# d = 42 + n_active roundings, and at most count - 1: each rounding adds
+# two disjoint non-empty sets of the bin's rows (adding an exact zero, an
+# empty tile or block, does not round).  The kernel's sum is within
+# gamma_d * sum|terms| of the exact sum (recursive summation, gamma_d =
+# d u / (1 - d u), u = 2^-24), and the plain version, summed in f64 and
+# rounded once, within u * sum|terms|; so each bin is held to (d + 2) *
+# 2^-24 * its own sum|terms| (f32_depth).  A control histogram of
+# bf16-rounded grad and hess must break that bound, or the check could
+# not tell f32 from bf16 operands.
 F32_UNIT = 2.0 ** -24
+SWEEP_ROUNDINGS = 5 + 31 + 7 - 1   # the bound's d, less n_active
+SKEW_SHARE = 0.9               # skew_bins: bin 0's share in half the features
 GAIN_TOL = 1e-6                # fused rows: relative gain agreement
 AUC_TOL = 1e-3                 # hist_impl=cuda vs hist_impl=torch, i32
 #                                vs f32 (bagged)
@@ -91,6 +99,7 @@ BAGGED = ["bagging_fraction=0.8", "bagging_freq=5", "feature_fraction=0.8"]
 # the kernels JSON line: (entry, wrapper, accumulator mode, TPU kernel,
 # the phase-4 case that times it)
 ROOT, MID = "full sweep, root", "block list, fused, mid-tree leaf"
+SKEW = "full sweep, skewed bins, root"
 ENTRIES = [
     ("hist_blocklist", "hist_blocklist", "f32",
      "lightgbm_tpu/ops/hist_pallas.py:366", "K1 " + ROOT),
@@ -206,6 +215,28 @@ def check(cond, what):
     print("ok  %s" % what)
 
 
+def f32_depth(count, n_active):
+    """d + 2 of the f32 bound per bin (F32_UNIT above): d = min(count - 1,
+    SWEEP_ROUNDINGS + n_active), n_active clamped to at least 1 as the
+    kernels clamp it."""
+    import torch
+    cap = SWEEP_ROUNDINGS + max(int(n_active), 1)
+    return torch.clamp(count.double() - 1, min=0, max=cap) + 2
+
+
+def skew_bins(bins):
+    """bins with SKEW_SHARE of the rows in bin 0 in every odd feature,
+    as a sparse feature or a few-valued one gives them: a row keeps its
+    bin there only where the feature before it has a bin divisible by 10
+    (so the skew comes from the bins themselves); even features stay."""
+    import torch
+    out = bins.clone()
+    odd = out[1::2]
+    keep = bins[0:2 * odd.shape[0]:2] % 10 == 0
+    out[1::2] = torch.where(keep, odd, torch.zeros_like(odd))
+    return out
+
+
 def sums_close(kernel, args, plan, what, acc="f32", control=True):
     """counts exact; each bin's grad and hess sums within (d + 2) * 2^-24
     of its sum of |terms| (F32_UNIT above), against the plain version of
@@ -223,8 +254,7 @@ def sums_close(kernel, args, plan, what, acc="f32", control=True):
                                     target, *plan, max_bin=MAX_BIN)
             if acc == "f32" and control else None)
     check(torch.equal(kernel[..., 2], plain[..., 2]), "%s: counts exact" % what)
-    depth = torch.clamp(plain[..., 2].double(),
-                        max=32 + hc.ROW_BLOCK // 32 + int(plan[1])) + 2
+    depth = f32_depth(plain[..., 2], int(plan[1]))
     err = 0.0
     for c, name in ((0, "grad"), (1, "hess")):
         bound = depth * F32_UNIT * absum[..., c].double()
@@ -291,9 +321,10 @@ def kernel_inputs(bins, dev, params):
     """Every input that phase 2 checks the kernels on and phase 4 times
     them on, at the main path's shapes, built without any check (so that
     scripts/torch_hist_times.py can time another checkout's kernels on
-    them): the root (every in-bag row, every block); a mid-tree split of
-    rows sorted by a 4-leaf partition, as the re-sort leaves them (parent
-    = leaves {2, 3}, small child = leaf 2); the accumulator modes' gh2 of
+    them): the root (every in-bag row, every block), also on skew_bins of
+    the bins; a mid-tree split of rows sorted by a 4-leaf partition, as
+    the re-sort leaves them (parent = leaves {2, 3}, small child = leaf
+    2); the accumulator modes' gh2 of
     both; the ranged kernels' ranges; and leaf_inputs' leaves."""
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda as hc
@@ -325,7 +356,8 @@ def kernel_inputs(bins, dev, params):
     two = _i32(2, dev)
     plan_s = hc.block_plan(eff, two)
     args = (bins_s, gh2_s, eff, two)
-    st = dict(bins=bins, grad=grad, hess=hess, gh2=gh2, bag=bag,
+    st = dict(bins=bins, skew=skew_bins(bins), grad=grad, hess=hess,
+              gh2=gh2, bag=bag,
               root_eff=root_eff, zero=zero, ident=ident, plan=plan,
               mid=(args, plan_s, ident,
                    _fused_args(*args[:3], parent_eff, two, max_bin=MAX_BIN)),
@@ -384,6 +416,39 @@ def phase2(st, params):
              fmask, params, "K4 pf_small")
     pf_close(k4[2], parent - k4[0], large[0], large[1].float(),
              large[2].float(), fmask, params, "K4 pf_large")
+    return err
+
+
+def phase2_skew(st):
+    """The root on skew_bins' bins in every mode, held to the uniform
+    root's checks: counts exact, each bin within the f32 bound (f32 with
+    its bf16 control, and bf16 against the same bf16 values), i32 equal
+    to the plain version bit for bit, K3's block list == K1's full sweep
+    bit for bit.  Returns the max abs error by mode."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    skew, root_eff, zero = st["skew"], st["root_eff"], st["zero"]
+    odd = skew[1::2]
+    share = float((odd == 0).double().mean())
+    check(abs(share - SKEW_SHARE) < 0.02 and torch.equal(skew[0::2],
+                                                         st["bins"][0::2]),
+          "skewed bins: %.4f of the rows in bin 0 in %d of %d features, "
+          "the others unchanged" % (share, odd.shape[0], skew.shape[0]))
+    err = {}
+    for acc in ("f32", "bf16", "i32"):
+        gh2, inv = ((st["gh2"], None) if acc == "f32"
+                    else st["modes"][acc][0])
+        kw = dict(max_bin=MAX_BIN, hist_acc=acc, inv_scale=inv)
+        args = (skew, gh2, root_eff, zero)
+        what = "%s K1 skewed bins, root" % acc
+        k1 = hc.hist_blocklist(*args, *st["ident"], **kw)
+        if acc == "i32":
+            err[acc] = bits_equal(k1, hc.hist_blocklist_plain(
+                *args, *st["ident"], **kw), "%s == plain, bits" % what)
+        else:
+            err[acc] = sums_close(k1, args, st["ident"], what, acc=acc)
+        bits_equal(hc.hist_blocklist(*args, *st["plan"], **kw), k1,
+                   "%s: K3 block list == K1 full sweep, bits" % what)
     return err
 
 
@@ -1066,6 +1131,19 @@ def phase4_cases(st, params):
              bincount3(bins_s, g_m.float(), eff, two),
              bound(eff, two, plan_s[1], gh_bytes, fused=True)),
         ]
+    for acc in ("f32", "i32", "bf16"):
+        g_r, inv_r = ((gh2, None) if acc == "f32" else st["modes"][acc][0])
+        kw_r = dict(max_bin=MAX_BIN, hist_acc=acc, inv_scale=inv_r)
+        s_args = (st["skew"], g_r, st["root_eff"], st["zero"])
+        cases.append((
+            ("K1 " if acc == "f32" else "K6-%s K1 " % acc) + SKEW,
+            "hist_blocklist",
+            lambda a=s_args, k=kw_r: hc.hist_blocklist(*a, *st["ident"], **k),
+            lambda a=s_args, k=kw_r: hc.hist_blocklist_plain(
+                *a, *st["ident"], **k),
+            bincount3(st["skew"], g_r.float(), st["root_eff"], st["zero"]),
+            bound(st["root_eff"], st["zero"], nblk,
+                  2 if acc == "bf16" else 4)))
     for label in TIMED_LEAVES:
         for acc, (a, pl, u, k) in st["leaves"][label].items():
             name = ("K4 " if acc == "f32" else "K6-%s K4 " % acc) + label
@@ -1137,6 +1215,7 @@ def main():
                            params)
         err = phase2(st, params)
         md_err = phase2_modes(st, params)
+        sk_err = phase2_skew(st)
         lc_err = leaf_cases(st, params)
         print("phase 2: kernels agree with their plain versions")
 
@@ -1165,6 +1244,9 @@ def main():
         err["hist_blocklist[%s]" % acc], err["hist_blocklist_fused[%s]"
                                              % acc] = md_err[acc]
     err["hist_ranged"], err["hist_ranged_fused"] = md_err["f32_ranged"]
+    for acc, e in sk_err.items():      # the skewed root, every mode
+        name = "hist_blocklist" + ("" if acc == "f32" else "[%s]" % acc)
+        err[name] = max(err[name], e)
     for per_mode in lc_err.values():   # K4's other leaves, every mode
         for acc, e in per_mode.items():
             name = "hist_blocklist_fused" + ("" if acc == "f32"

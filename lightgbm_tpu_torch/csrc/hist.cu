@@ -37,13 +37,17 @@
 // What bounds them.  Memory: each sweep reads F bytes of bins and 4 bytes
 // of leaf_eff per listed row, 8 bytes (f32, i32) or 4 (bf16) of (grad,
 // hess) per in-leaf row, and writes one partial histogram per (listed
-// block, feature).  The TPU
-// kernel turned the scatter into one-hot matrix products for the MXU
-// (bin = hi*32 + lo); a GPU scatters into shared memory directly, so none
-// of that is carried over.  On the card the float sweeps were bound by the
-// grouping of lanes by bin (__match_any_sync, about 60 cycles a warp step
-// on each SM) and small leaves by one thread block's serial walk over a
-// whole block; the design below answers both.
+// block, feature).  The TPU kernel turned the scatter into one-hot matrix
+// products for the MXU (bin = hi*32 + lo); a GPU scatters into shared
+// memory directly, so none of that is carried over.  On the card the
+// sweeps are far from HBM-bound (the root at about 12x its byte bound):
+// measured, a tile's fixed work (the staging's round trip to device
+// memory, the barriers, the cluster merge) takes about a third of the
+// root's sweep and grouping the lanes of a step by bin most of the rest;
+// the shared-memory updates themselves are the smaller part.  The design
+// below issues a tile's loads at once, groups lanes with one byte a bin
+// and one word a shared bin, and spends one 8-byte load and store and one
+// count update per group.
 //
 // Design.
 //   * Grid (feature groups of FG = 8, list positions, 8 tiles), with the 8
@@ -59,32 +63,62 @@
 //     the last block adds nothing (a zero tile; on the TPU such a position
 //     reads past the array).
 //   * bins may be a window of a wider matrix: row f starts at f * ldb.
-//     bins, ldb and leaf_eff must be 16-byte aligned (the wrappers check).
-//     gh2 and leaf_eff are [2, N] and [N], contiguous.
-//   * Staging a tile: leaf_eff in one int4 load a thread; the in-leaf rows
-//     compacted in ascending order into idx (each 32-row chunk's flag mask
-//     assembled from its 8 lanes' 4-bit flags by warp shuffles, then an
-//     exclusive prefix over the 32 chunk counts); (grad, hess) gathered
-//     for the compacted rows only; the 8 features' 1024-byte bin segments
-//     copied with 16-byte loads.  A warp then walks ceil(n_in / 32) steps
-//     over the compacted rows, so out-of-leaf rows cost no step.
-//   * Every run gives the same bits.  Float modes use no float atomics: in
-//     each step the lanes are grouped by bin (each lane ORs its bit into
-//     its bin's 32-bit word in shared memory: the mask __match_any_sync
-//     would return, built with integer atomics at a fraction of its cost);
-//     one lane per bin sums the group's rows in lane order and adds the sum
-//     to the bin, which no other lane touches in that step.  The i32 mode
-//     adds with shared-memory integer atomics, exact in any order.
-//   * Merge: after a cluster barrier, rank r sums feature r's histogram
-//     over the 8 ranks' shared memory (distributed shared memory), in rank
-//     order, and writes it to the position's slot of a partials buffer; a
-//     second barrier keeps every CTA's shared memory alive until all have
-//     read it.  The reduce sums the first n_active slots in ascending list
-//     position.  So a bin's sum runs in lane order within a group, step
-//     order within a tile, rank order within a block and list order across
-//     blocks; with an ascending block list it is bit-identical to the full
-//     sweep: an unlisted block's tiles compact to no rows and add exact
-//     +0.0 (exact 0 in i32).
+//     bins, ldb, gh2 and leaf_eff must be 16-byte aligned (the wrappers
+//     check); gh2 and leaf_eff are [2, N] and [N], contiguous.
+//   * Staging a tile: every global load is issued up front, so that their
+//     latencies overlap: leaf_eff and (grad, hess) of rows 4t .. 4t+3 in
+//     one 16-byte load each (8 bytes for bf16 gh2) and two 16-byte bin
+//     segments a thread.  The in-leaf rows are compacted in ascending
+//     order (each 32-row chunk's flag mask assembled from its 8 lanes'
+//     4-bit flags by warp shuffles, then an exclusive prefix over the 32
+//     chunk counts): their offsets into idx and their (grad, hess) into
+//     shared memory, straight from registers; the bin segments are
+//     stored as they are and, unless every row is in, each warp then
+//     compacts its feature's segment in place through idx.
+//   * The step loop.  A warp owns one feature's records in the tile: per
+//     bin an 8-byte (g, h) record (float2; int2 in i32) and an int count,
+//     3 KB a warp, 43 KB of shared memory a CTA in every mode (5 CTAs an
+//     SM).  It walks the compacted rows 128 at a time:
+//     lane l reads the bins of rows 128 s + 4 l + j, j = 0..3, as one
+//     32-bit word and their grad and hess as one 16-byte load each, and
+//     runs sub-steps j = 0..3, lane l on row 128 s + 4 l + j.  Out-of-leaf
+//     rows cost no step.
+//   * Float modes: a warp groups the lanes of a sub-step by bin without a
+//     shared-memory word per lane and bin: each lane writes its lane id
+//     into its bin's owner byte (256 bytes a warp; the hardware keeps one
+//     of the stores to a byte, and which one does not change the groups)
+//     and reads it back.  Where every lane reads its own id the rows'
+//     bins are distinct and each lane is its own group.  Otherwise each
+//     lane ORs its bit into the word of the id it read (the group's
+//     winner; 32 words a warp) and reads its group's mask back.  A group
+//     sums its rows by a pairwise tree over its members in lane order
+//     through shuffles (at level s the member of rank r, r a multiple of
+//     2s, adds the partial of rank r + s; ceil(log2 size) levels, so a
+//     step whose 32 rows share a bin costs 5 levels, not 31 serial
+//     additions), and its first member adds the sum to the bin with one
+//     float2 load and store, and the group's size to the int count with
+//     one integer atomic.  No float atomics (sm_90 has no shared-memory
+//     float add: the compiler emits a compare-and-swap loop).
+//   * i32: integer sums are exact in any order, so no groups: each row
+//     adds g, h and 1 to its bin with three shared-memory integer atomics
+//     (a packed 64-bit (g, h) add would be one, but sm_90 runs the 64-bit
+//     shared add as a compare-and-swap loop, slower than three).
+//   * Merge: after a cluster barrier, rank r sums feature r's records over
+//     the 8 ranks' shared memory (distributed shared memory), in rank
+//     order, one bin a thread, and writes (g, h, count) to the position's
+//     slot of a partials buffer [nblocks, F, 256, 3] (counts converted
+//     exactly to float in the float modes); a second
+//     barrier keeps every CTA's shared memory alive until all have read
+//     it.  The reduce sums the first n_active slots in ascending list
+//     position.
+//   * Every run gives the same bits.  A bin's float sum runs: the pairwise
+//     tree within a sub-step's group, sub-step order (s, then j) within a
+//     tile, rank order within a block, list order across blocks.  The
+//     order depends only on the rows (which are in the leaf, their bins),
+//     so a block list that is ascending gives the full sweep's bits: an
+//     unlisted block's tiles compact to no rows and add exact +0.0 (exact
+//     0 in i32).  At most 5 + 31 + 7 + n_active - 1 roundings reach a
+//     term (chip_smoke.py's per-bin bound).
 //   * The fused epilogue is one thread block of 256 threads per feature:
 //     (1) thread b reduces bin b's partials, dequantises, writes hist and
 //     the two children's bins (small, parent - small); (2) six lanes, one
@@ -108,6 +142,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -120,6 +155,7 @@ constexpr int FG = 8;            // features per thread block, one warp each
 constexpr int THREADS = FG * 32;
 constexpr int TILE = 1024;       // rows per CTA: one tile of a block
 constexpr int CLUSTER = ROW_BLOCK / TILE;  // CTAs per block, one cluster
+static_assert(THREADS == NBIN, "the merge takes one bin a thread");
 constexpr float K_EPSILON = 1e-15f;
 
 enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_I32 = 2 };
@@ -129,16 +165,19 @@ template <> struct ModeT<MODE_F32> {
   using gh_t = float;
   using acc_t = float;
   using vec_t = float4;
+  using rec_t = float2;
 };
 template <> struct ModeT<MODE_BF16> {
   using gh_t = __nv_bfloat16;
   using acc_t = float;
   using vec_t = float4;
+  using rec_t = float2;
 };
 template <> struct ModeT<MODE_I32> {
   using gh_t = int;
   using acc_t = int;
   using vec_t = int4;
+  using rec_t = int2;
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -176,21 +215,102 @@ __device__ __forceinline__ float dequant(typename ModeT<MODE>::acc_t v,
   }
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SEGS = FG * TILE / 16 / THREADS;  // bin segments a thread
+
+// gh2 of rows r .. r+3 (r a multiple of 4), widened to the accumulator type
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ int4 load4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  // a bf16 value is the top half of the float it widens to
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 // the sweep's shared memory (dynamic: above the 48 KB of static shared
-// memory in the float modes)
+// memory): per warp (feature) and bin, one 8-byte (g, h) record (float2;
+// int2 in i32) and an int count
 template <int MODE> struct SweepSmem {
   using acc_t = typename ModeT<MODE>::acc_t;
-  acc_t hist[FG][NBIN][3];        // one histogram per feature (warp)
-  uint8_t bins[FG][TILE];         // the tile's bins, 8 features
+  using rec_t = typename ModeT<MODE>::rec_t;
+  rec_t gh[FG][NBIN];
+  int cnt[FG][NBIN];
+  uint8_t bins[FG][TILE];         // the tile's bins; compacted in place
   acc_t g[TILE];                  // (grad, hess) of the in-leaf rows
   acc_t h[TILE];
-  // float modes: per warp and bin, the lanes of the current step that
-  // hold that bin (the __match_any_sync mask), built by atomicOr
-  unsigned lanes[MODE == MODE_I32 ? 1 : FG * NBIN];
-  uint16_t idx[TILE];             // in-leaf row offsets, ascending
+  union {
+    uint16_t idx[TILE];           // staging: in-leaf row offsets, ascending
+    struct {                      // step loop, per warp:
+      uint8_t own[FG][NBIN];      //   a lane id per bin
+      unsigned grp[FG][32];       //   a group's lanes per winning lane id
+    };
+  };
   int chunk_base[TILE / 32];
   int n_in;
 };
+
+// one sub-step of a float sweep: lane `lane` holds row (b, g, h) if `in`.
+// The lanes that hold the same bin form a group: each lane writes its id
+// into its bin's owner byte and one write lands, so the members of a
+// group, and only they, read back the same id (their group's winner).
+// Where some lane reads another id, each lane ORs its bit into the word
+// of its winner and reads the group's mask back; the winner clears the
+// word.  A group sums its (g, h) by a pairwise tree over its members in
+// lane order (at level s the member of rank r, r a multiple of 2s, adds
+// the partial of rank r + s), and its first member adds the sum to the
+// bin with one 8-byte load and store and the group's size to the count;
+// no other lane touches that bin in the sub-step.
+__device__ __forceinline__ void add_row(float2* gh, int* cnt, uint8_t* own,
+                                        unsigned* words, int b, bool in,
+                                        float g, float h, int lane) {
+  if (in) own[b] = (uint8_t)lane;
+  __syncwarp();
+  const int w = in ? own[b] : lane;  // the lane whose write landed
+  unsigned grp = in ? 1u << lane : 0u;
+  int top = 1;  // the largest group, uniform over the warp
+  if (__ballot_sync(FULL, w != lane)) {  // some bin is held by several lanes
+    if (in) atomicOr(&words[w], 1u << lane);
+    __syncwarp();
+    if (in) grp = words[w];
+    __syncwarp();
+    if (in && w == lane) words[w] = 0u;
+    top = (int)__reduce_max_sync(FULL, (unsigned)__popc(grp));
+  }
+  const unsigned below = (1u << lane) - 1u;
+  const int rank = __popc(grp & below);
+  const int size = __popc(grp);
+  if (top > 1) {
+    unsigned after = grp & ~below & ~(1u << lane);  // members after this lane
+    for (int s = 1;; s <<= 1) {
+      const bool take = (rank & (2 * s - 1)) == 0 && rank + s < size;
+      const int src = take ? __ffs(after) - 1 : lane;
+      const float gv = __shfl_sync(FULL, g, src);
+      const float hv = __shfl_sync(FULL, h, src);
+      if (take) {
+        g += gv;
+        h += hv;
+      }
+      if (2 * s >= top) break;
+#pragma unroll 1
+      for (int c = 0; c < s; ++c) after &= after - 1u;  // now rank + 2s first
+    }
+  }
+  if (size > 0 && rank == 0) {
+    float2 o = gh[b];
+    o.x += g;
+    o.y += h;
+    gh[b] = o;
+    atomicAdd(&cnt[b], size);  // the only update of cnt[b] in the sub-step
+  }
+  __syncwarp();  // the next sub-step writes the owner bytes again
+}
 
 template <int MODE, bool RANGED>
 __global__ void __cluster_dims__(1, 1, CLUSTER) __launch_bounds__(THREADS)
@@ -203,6 +323,7 @@ sweep_kernel(const uint8_t* __restrict__ bins, long long ldb,
              long long N, int nblocks) {
   using acc_t = typename ModeT<MODE>::acc_t;
   using vec_t = typename ModeT<MODE>::vec_t;
+  using rec_t = typename ModeT<MODE>::rec_t;
   // uniform over the cluster (one list position), so it comes before
   // any cluster.sync()
   const int pos = blockIdx.y;
@@ -217,25 +338,40 @@ sweep_kernel(const uint8_t* __restrict__ bins, long long ldb,
   const int f0 = blockIdx.x * FG;
   const int f = f0 + warp;
 
-  acc_t* hflat = &sm.hist[0][0][0];
-  for (int i = threadIdx.x; i < FG * NBIN * 3; i += THREADS) hflat[i] = 0;
-  if constexpr (MODE != MODE_I32)
-    for (int i = threadIdx.x; i < FG * NBIN; i += THREADS) sm.lanes[i] = 0u;
+  // zero the records and counts, 16 bytes a thread at a time
+  constexpr int ZERO16 = offsetof(SweepSmem<MODE>, bins) / 16;
+  for (int i = threadIdx.x; i < ZERO16; i += THREADS)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
 
   int n_in = 0;
   if (blk >= 0) {  // uniform over the cluster
     const long long row0 = (long long)blk * ROW_BLOCK + (long long)rank * TILE;
-    // in-leaf flags of rows 4t .. 4t+3 from one 16-byte load
     const int target = *target_p;
+    // every global load of the tile up front, so that their latencies
+    // overlap: the flags and (grad, hess) of rows 4t .. 4t+3, and two
+    // 16-byte bin segments
     const int4 e = reinterpret_cast<const int4*>(leaf_eff + row0)[threadIdx.x];
+    const vec_t g4 = load4(gh2 + row0 + 4 * threadIdx.x);
+    const vec_t h4 = load4(gh2 + N + row0 + 4 * threadIdx.x);
+    uint4 seg[SEGS];
+#pragma unroll
+    for (int u = 0; u < SEGS; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int fl = i / (TILE / 16);
+      seg[u] = f0 + fl < F
+                   ? *reinterpret_cast<const uint4*>(
+                         bins + (long long)(f0 + fl) * ldb + row0 +
+                         (i % (TILE / 16)) * 16)
+                   : make_uint4(0, 0, 0, 0);
+    }
     const unsigned nib = (e.x == target) | (e.y == target) << 1 |
                          (e.z == target) << 2 | (e.w == target) << 3;
     // the warp's 128 rows are 4 chunks of 32, each held by 8 lanes: OR
     // the lanes' nibbles into each chunk's 32-bit mask
     unsigned mask = nib << (4 * (lane & 7));
-    mask |= __shfl_xor_sync(0xffffffffu, mask, 1);
-    mask |= __shfl_xor_sync(0xffffffffu, mask, 2);
-    mask |= __shfl_xor_sync(0xffffffffu, mask, 4);
+    mask |= __shfl_xor_sync(FULL, mask, 1);
+    mask |= __shfl_xor_sync(FULL, mask, 2);
+    mask |= __shfl_xor_sync(FULL, mask, 4);
     const int chunk = warp * 4 + (lane >> 3);
     if ((lane & 7) == 0) sm.chunk_base[chunk] = __popc(mask);
     __syncthreads();
@@ -243,7 +379,7 @@ sweep_kernel(const uint8_t* __restrict__ bins, long long ldb,
       const int c = sm.chunk_base[lane];
       int incl = c;
       for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        const int v = __shfl_up_sync(FULL, incl, d);
         if (lane >= d) incl += v;
       }
       sm.chunk_base[lane] = incl - c;
@@ -251,98 +387,107 @@ sweep_kernel(const uint8_t* __restrict__ bins, long long ldb,
     }
     __syncthreads();
     n_in = sm.n_in;
-    // compact in ascending row order
+    // the in-leaf rows' offsets and (grad, hess), compacted in ascending
+    // row order
     const int base = sm.chunk_base[chunk];
     const int bit0 = 4 * (lane & 7);
+    const acc_t gv[4] = {g4.x, g4.y, g4.z, g4.w};
+    const acc_t hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (nib >> j & 1) {
-        const int b = bit0 + j;
-        sm.idx[base + __popc(mask & ((1u << b) - 1u))] =
-            (uint16_t)(4 * threadIdx.x + j);
+        const int k = base + __popc(mask & ((1u << (bit0 + j)) - 1u));
+        sm.idx[k] = (uint16_t)(4 * threadIdx.x + j);
+        sm.g[k] = gv[j];
+        sm.h[k] = hv[j];
       }
     }
-    // the 8 features' bin segments, 16 bytes a thread at a time
-    for (int i = threadIdx.x; i < FG * TILE / 16; i += THREADS) {
-      const int fl = i / (TILE / 16);
-      const int o = (i % (TILE / 16)) * 16;
-      if (f0 + fl < F)
-        *reinterpret_cast<uint4*>(&sm.bins[fl][o]) =
-            *reinterpret_cast<const uint4*>(bins + (long long)(f0 + fl) * ldb +
-                                            row0 + o);
+#pragma unroll
+    for (int u = 0; u < SEGS; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      *reinterpret_cast<uint4*>(&sm.bins[i / (TILE / 16)]
+                                        [(i % (TILE / 16)) * 16]) = seg[u];
     }
-    __syncthreads();  // idx is complete
-    // (grad, hess) of the in-leaf rows only
-    for (int k = threadIdx.x; k < n_in; k += THREADS) {
-      const long long r = row0 + sm.idx[k];
-      sm.g[k] = widen(gh2[r]);
-      sm.h[k] = widen(gh2[N + r]);
+    __syncthreads();  // idx and the bin segments are complete
+    // each warp compacts its feature's bins to the in-leaf rows, in place
+    // (idx[k] >= k, and a chunk is read before it is written)
+    if (n_in < TILE && f < F) {
+      uint8_t* fb = sm.bins[warp];
+      for (int k0 = 0; k0 < n_in; k0 += 32) {
+        const int k = k0 + lane;
+        const uint8_t v = k < n_in ? fb[sm.idx[k]] : 0;
+        __syncwarp();
+        if (k < n_in) fb[k] = v;
+        __syncwarp();
+      }
     }
   }
-  __syncthreads();  // hist zeroed, the tile staged
+  __syncthreads();  // the tile staged; the owner bytes may overwrite idx
 
+  // the step loop: lane l takes compacted rows 128 s + 4 l + j in
+  // sub-step (s, j), reading the bins of its 4 rows as one word and their
+  // grad and hess as one 16-byte load each
   if (f < F) {
-    acc_t(*hw)[3] = sm.hist[warp];
+    rec_t* gh = sm.gh[warp];
+    int* cnt = sm.cnt[warp];
     const uint8_t* fb = sm.bins[warp];
-    for (int s0 = 0; s0 < n_in; s0 += 32) {
-      const int k = s0 + lane;
-      const bool in = k < n_in;
-      const int b = in ? fb[sm.idx[k]] : 0;
-      if constexpr (MODE == MODE_I32) {
-        if (in) {
-          atomicAdd(&hw[b][0], sm.g[k]);
-          atomicAdd(&hw[b][1], sm.h[k]);
-          atomicAdd(&hw[b][2], 1);
-        }
-      } else {
-        // group the lanes by bin (what __match_any_sync returns, at a
-        // fraction of its cost); the one lane that found the bin's mask
-        // empty sums the group in lane order and adds that to the bin
-        unsigned* lanes = sm.lanes + warp * NBIN;
-        const unsigned prev = in ? atomicOr(&lanes[b], 1u << lane) : 1u;
-        __syncwarp();
-        if (prev == 0u) {
-          const unsigned grp = lanes[b];
-          lanes[b] = 0u;
-          float g = 0.f, h = 0.f, c = 0.f;
-          for (unsigned m = grp; m; m &= m - 1) {
-            const int j = s0 + __ffs(m) - 1;
-            g += sm.g[j];
-            h += sm.h[j];
-            c += 1.f;
+    sm.grp[warp][lane] = 0u;  // the step loop's group words start empty
+    __syncwarp();
+    for (int s0 = 0; s0 < n_in; s0 += 4 * 32) {
+      const int k0 = s0 + 4 * lane;
+      const unsigned bw = *reinterpret_cast<const unsigned*>(fb + k0);
+      const vec_t g4 = *reinterpret_cast<const vec_t*>(sm.g + k0);
+      const vec_t h4 = *reinterpret_cast<const vec_t*>(sm.h + k0);
+      const acc_t gj[4] = {g4.x, g4.y, g4.z, g4.w};
+      const acc_t hj[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = k0 + j < n_in;
+        const int b = (bw >> (8 * j)) & 0xff;
+        if constexpr (MODE == MODE_I32) {
+          // integer adds are exact in any order: three shared-memory
+          // atomics a row
+          if (in) {
+            atomicAdd(&gh[b].x, gj[j]);
+            atomicAdd(&gh[b].y, hj[j]);
+            atomicAdd(&cnt[b], 1);
           }
-          hw[b][0] += g;
-          hw[b][1] += h;
-          hw[b][2] += c;
+        } else {
+          add_row(gh, cnt, sm.own[warp], sm.grp[warp], b, in, gj[j],
+                  hj[j], lane);
         }
-        __syncwarp();
       }
     }
   }
 
   // merge the 8 tiles through distributed shared memory: rank r sums
-  // feature f0 + r's histogram over ranks 0..7, in rank order, four words
-  // a thread at a time
+  // feature f0 + r over ranks 0..7, in rank order, one bin a thread
   cluster.sync();
   const int fr = f0 + rank;
-  if (fr < F && threadIdx.x < NBIN * 3 / 4) {
-    const int o = rank * NBIN * 3 / 4 + threadIdx.x;
-    vec_t v[CLUSTER];
+  if (fr < F) {
+    const int b = threadIdx.x;  // THREADS == NBIN
+    rec_t v[CLUSTER];
+    int c[CLUSTER];
 #pragma unroll
-    for (int q = 0; q < CLUSTER; ++q)
-      v[q] = reinterpret_cast<const vec_t*>(
-          cluster.map_shared_rank(hflat, q))[o];
-    vec_t acc = v[0];
+    for (int q = 0; q < CLUSTER; ++q) {
+      SweepSmem<MODE>* rq = cluster.map_shared_rank(&sm, q);
+      v[q] = rq->gh[rank][b];
+      c[q] = rq->cnt[rank][b];
+    }
+    rec_t acc = v[0];
+    int cacc = c[0];
 #pragma unroll
     for (int q = 1; q < CLUSTER; ++q) {
       acc.x += v[q].x;
       acc.y += v[q].y;
-      acc.z += v[q].z;
-      acc.w += v[q].w;
+      cacc += c[q];
     }
-    reinterpret_cast<vec_t*>(partial + ((long long)pos * F + fr) * NBIN *
-                                           3)[threadIdx.x] = acc;
+    acc_t* out = partial + (((long long)pos * F + fr) * NBIN + b) * 3;
+    out[0] = acc.x;
+    out[1] = acc.y;
+    out[2] = (acc_t)cacc;
   }
-  cluster.sync();  // no CTA leaves while another reads its hist
+  cluster.sync();  // no CTA leaves while another reads its records
 }
 
 // hist[f, b, c] = dequant(sum over list positions p < n_active of

@@ -15,19 +15,22 @@ of them (K6: make_gh2_acc, dequant_hist).
 Shared inputs: bins_t [F, N] uint8 (a window of a wider matrix is fine:
 its rows need only be contiguous; it must start at a 16-byte boundary,
 with rows a multiple of 16 bytes apart), gh2 [2, N] (grad, hess) in the
-mode's streaming dtype (make_gh2_acc), leaf_eff [N] i32 (leaf id, -1 out
-of bag; 16-byte aligned), and either a block list [N / 8192] i32 whose
-first n_active entries name the row blocks to sweep, or a range start:
-blocks start .. start + n_active - 1.  n_active is clamped to
-[1, nblocks] and the entries to [0, nblocks), as the JAX package clamps
-them.  target, n_active, start and the i32 mode's inv_scale are tensors
+mode's streaming dtype (make_gh2_acc; 16-byte aligned), leaf_eff [N] i32
+(leaf id, -1 out of bag; 16-byte aligned), and either a block list
+[N / 8192] i32 whose first n_active entries name the row blocks to
+sweep, or a range start: blocks start .. start + n_active - 1.
+n_active is clamped to [1, nblocks] and the entries to [0, nblocks), as
+the JAX package clamps them.  target, n_active, start and the i32 mode's inv_scale are tensors
 on the device, so the training loop never waits on the host.
 
 The sweep (csrc/hist.cu) cuts each listed 8192-row block into 8 tiles of
 1024 rows, one thread block each, the 8 joined as a thread-block cluster;
-a tile compacts its in-leaf rows before it sums them, and the cluster
-merges its 8 tile histograms in rank order through distributed shared
-memory into one partial per (listed block, feature).  The reduce sums the
+a tile compacts its in-leaf rows before it sums them, one warp a feature:
+in the float modes the warp groups its 32 rows of a step by bin and adds
+each group's pairwise-tree sum to its bin once; in i32 each row adds
+itself with three integer atomics.  The cluster merges
+its 8 tile histograms in rank order through distributed shared memory
+into one partial per (listed block, feature).  The reduce sums the
 partials in list order; the fused variant then scans both children in a
 parallel epilogue.  Every sum has a fixed order, so every run gives the
 same bits and an ascending block list gives the full sweep's.
@@ -300,11 +303,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError("%s must be contiguous" % name)
 
 
-def check_alignment(bins_t: torch.Tensor, leaf_eff: torch.Tensor) -> None:
-    """The sweep stages bins_t in 16-byte loads and leaf_eff in int4 loads:
-    raises ValueError unless bins_t starts at a 16-byte boundary with its
-    rows a multiple of 16 bytes apart, and leaf_eff starts at one.  Fresh
-    allocations and their row windows [:, :W] qualify; no copy is made."""
+def check_alignment(bins_t: torch.Tensor, leaf_eff: torch.Tensor,
+                    gh2=None) -> None:
+    """The sweep stages bins_t in 16-byte loads, and leaf_eff and gh2 four
+    rows a load: raises ValueError unless bins_t starts at a 16-byte
+    boundary with its rows a multiple of 16 bytes apart, and leaf_eff (and
+    gh2, if given) start at one.  Fresh allocations and their row windows
+    [:, :W] qualify; no copy is made."""
     if bins_t.data_ptr() % 16 or bins_t.stride(0) % 16:
         raise ValueError("bins_t must start at a 16-byte boundary with rows "
                          "a multiple of 16 bytes apart (offset %d, row "
@@ -312,6 +317,8 @@ def check_alignment(bins_t: torch.Tensor, leaf_eff: torch.Tensor) -> None:
                                          bins_t.stride(0)))
     if leaf_eff.data_ptr() % 16:
         raise ValueError("leaf_eff must start at a 16-byte boundary")
+    if gh2 is not None and gh2.data_ptr() % 16:
+        raise ValueError("gh2 must start at a 16-byte boundary")
 
 
 def _check_sweep(bins_t, gh2, leaf_eff, target, blocks, n_active, max_bin,
@@ -339,7 +346,7 @@ def _check_sweep(bins_t, gh2, leaf_eff, target, blocks, n_active, max_bin,
         raise ValueError("bins_t rows must be contiguous")
     _check(gh2, "gh2", GH2_DTYPE[hist_acc], (2, n), dev)
     _check(leaf_eff, "leaf_eff", torch.int32, (n,), dev)
-    check_alignment(bins_t, leaf_eff)
+    check_alignment(bins_t, leaf_eff, gh2)
     _check(target.reshape(1), "target", torch.int32, (1,), dev)
     if ranged:
         _check(blocks.reshape(1), "start", torch.int32, (1,), dev)

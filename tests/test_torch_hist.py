@@ -10,6 +10,9 @@ threshold per feature and the same best feature, with gains within 1e-5
 relative.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -269,10 +272,11 @@ def test_wrapper_off_the_cpu_launches_or_raises(case):
 
 
 def test_alignment_check_raises_on_an_offset_view():
-    """The sweep stages bins in 16-byte loads and leaf_eff in int4 loads:
-    a row window of a fresh allocation passes; an offset view, rows a
-    stride apart that is no multiple of 16, or an offset leaf_eff raise
-    (the wrappers run the check before every launch)."""
+    """The sweep stages bins in 16-byte loads, and leaf_eff and gh2 four
+    rows a load: a row window of a fresh allocation passes; an offset
+    view, rows a stride apart that is no multiple of 16, an offset
+    leaf_eff or an offset gh2 raise (the wrappers run the check before
+    every launch)."""
     wide = torch.zeros((F, N + 32), dtype=torch.uint8)
     eff = torch.zeros(N + 4, dtype=torch.int32)
     th.check_alignment(wide[:, :N], eff[:N])
@@ -283,3 +287,137 @@ def test_alignment_check_raises_on_an_offset_view():
                            eff[:N])
     with pytest.raises(ValueError, match="16-byte"):
         th.check_alignment(wide[:, :N], eff[1:N + 1])
+    gh2 = torch.zeros((2, N + 4), dtype=torch.float32)
+    th.check_alignment(wide[:, :N], eff[:N], gh2[:, :N])
+    with pytest.raises(ValueError, match="gh2 must start"):
+        th.check_alignment(wide[:, :N], eff[:N], gh2.view(-1)[1:2 * N + 1]
+                           .view(2, N))
+
+
+# -- the sweep's f32 summation order against chip_smoke.py's bound ----------
+#
+# chip_smoke.py holds the card's f32 sums to a per-bin bound derived from
+# the sweep's summation order (csrc/hist.cu, "Every run gives the same
+# bits").  Here that order is replayed in numpy float32 on the CPU, and the
+# replay must stay within the bound of the plain f64-summed histogram,
+# while the same histogram of bf16-rounded operands must break it.
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+ORDER_N, ORDER_F, ORDER_B = 2 * th.ROW_BLOCK, 4, 16
+TILE = 1024
+
+
+def _tree_sum(vals):
+    """The pairwise tree over a group's rows in lane order: at level s the
+    row of rank r (r a multiple of 2s) adds the partial of rank r + s."""
+    v = [np.float32(x) for x in vals]
+    s = 1
+    while s < len(v):
+        for r in range(0, len(v) - s, 2 * s):
+            v[r] = np.float32(v[r] + v[r + s])
+        s *= 2
+    return v[0]
+
+
+def emulate_sweep_f32(bins, gh2, eff, target, block_list, n_active, max_bin):
+    """[F, max_bin, 3] float32 as the f32 sweep sums it: per tile, the
+    in-leaf rows compacted in ascending order; sub-step (s, j) gives lane l
+    compacted row 128 s + 4 l + j; per bin, the sub-step's rows summed by
+    _tree_sum and added to the tile's bin in sub-step order; a block's 8
+    tiles added in rank order; the blocks in list order."""
+    f_, n = bins.shape
+    nblk = n // th.ROW_BLOCK
+    k = min(max(int(n_active), 1), nblk)
+    acc = np.zeros((f_, th.MAX_BIN, 3), np.float32)
+    for p in range(k):
+        blk = min(max(int(block_list[p]), 0), nblk - 1)
+        tiles = []
+        for t in range(th.ROW_BLOCK // TILE):
+            rows = blk * th.ROW_BLOCK + t * TILE + np.arange(TILE)
+            rows = rows[eff[rows] == target]
+            th_ = np.zeros((f_, th.MAX_BIN, 3), np.float32)
+            for s0 in range(0, len(rows), 4 * 32):
+                for j in range(4):
+                    ks = s0 + 4 * np.arange(32) + j
+                    r = rows[ks[ks < len(rows)]]
+                    for f in range(f_):
+                        b = bins[f, r]
+                        for bb in np.unique(b):
+                            sel = r[b == bb]
+                            for c in (0, 1):
+                                th_[f, bb, c] = np.float32(
+                                    th_[f, bb, c] + _tree_sum(gh2[c, sel]))
+                            th_[f, bb, 2] += len(sel)
+            tiles.append(th_)
+        blk_sum = tiles[0]
+        for q in tiles[1:]:
+            blk_sum = blk_sum + q
+        acc = acc + blk_sum
+    return acc[:, :max_bin]
+
+
+@pytest.fixture(scope="module")
+def order_case():
+    rng = np.random.RandomState(11)
+    bins = rng.randint(0, ORDER_B, size=(ORDER_F, ORDER_N)).astype(np.uint8)
+    gh2 = np.stack([rng.randn(ORDER_N),
+                    rng.uniform(0.05, 0.25, ORDER_N)]).astype(np.float32)
+    eff = np.where(rng.rand(ORDER_N) < 0.3, 2, 0).astype(np.int32)
+    return bins, gh2, eff
+
+
+def _order_hists(order_case, kind):
+    """(emulated, plain, plain of |gh2|, plain of bf16 gh2, count cap)."""
+    bins, gh2, eff = order_case
+    if kind == "skewed":
+        bins = cs.skew_bins(torch.from_numpy(bins)).numpy()
+    plan = th.identity_plan(ORDER_N, "cpu")
+    emu = emulate_sweep_f32(bins, gh2, eff, 2, plan[0].numpy(), plan[1],
+                            ORDER_B)
+    t = [torch.from_numpy(x) for x in (bins, gh2, eff)]
+    two = torch.tensor(2, dtype=torch.int32)
+
+    def plain(g):
+        return th.hist_blocklist_plain(t[0], g, t[2], two, *plan,
+                                       max_bin=ORDER_B).double()
+    return (torch.from_numpy(emu).double(), plain(t[1]), plain(t[1].abs()),
+            plain(t[1].bfloat16().float()), int(plan[1]))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_sweep_order_stays_within_the_chip_smoke_bound(order_case, kind):
+    emu, plain, absum, _, n_active = _order_hists(order_case, kind)
+    assert torch.equal(emu[..., 2], plain[..., 2])
+    depth = cs.f32_depth(plain[..., 2], n_active)
+    assert float(depth.max()) == cs.SWEEP_ROUNDINGS + n_active + 2
+    for c in (0, 1):
+        bound = depth * cs.F32_UNIT * absum[..., c]
+        assert bool(((emu[..., c] - plain[..., c]).abs() <= bound).all()), c
+
+
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_bf16_control_breaks_the_chip_smoke_bound(order_case, kind):
+    _, plain, absum, ctrl, n_active = _order_hists(order_case, kind)
+    depth = cs.f32_depth(plain[..., 2], n_active)
+    for c in (0, 1):
+        bound = depth * cs.F32_UNIT * absum[..., c]
+        live = bound > 0
+        ratio = ((ctrl[..., c] - plain[..., c]).abs()[live] / bound[live])
+        assert float(ratio.max()) > 1.0, c
+
+
+def test_skew_bins_gives_the_skew_it_claims():
+    rng = np.random.RandomState(13)
+    bins = torch.from_numpy(rng.randint(0, 255, size=(7, th.ROW_BLOCK))
+                            .astype(np.uint8))
+    skew = cs.skew_bins(bins)
+    assert torch.equal(skew[0::2], bins[0::2])
+    odd = skew[1::2]
+    share = float((odd == 0).double().mean())
+    assert abs(share - cs.SKEW_SHARE) < 0.02, share
+    kept = odd != 0
+    assert torch.equal(odd[kept], bins[1::2][kept])
